@@ -1,7 +1,7 @@
-"""dipper-tpu: a TPU-native distance-based phylogeny engine.
+"""dipper-tpu: a distance-based phylogeny engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-TurakhiaLab/DIPPER (reference: /root/reference, CUDA/C++):
+A from-scratch JAX re-design of the capabilities of TurakhiaLab/DIPPER
+(a CUDA/C++ tool), run on an NVIDIA GPU:
 
 - MinHash (Mash) sketching of unaligned DNA and sketch distances
 - model-corrected distances from aligned FASTA (uncorrected, JC,
@@ -13,11 +13,11 @@ TurakhiaLab/DIPPER (reference: /root/reference, CUDA/C++):
 - adding query tips to an existing backbone tree (--add)
 
 Unlike the reference (a latency-oriented chain of tiny CUDA kernels with
-serial device-side tree mutation), everything here is built
-throughput-first for TPU: fixed-shape jitted loops (`lax.fori_loop` /
-`lax.while_loop`), batched MXU matmuls for alignment statistics, a
-bitonic-merge sketch intersection engine on the VPU, and `shard_map`
-sharding over a device mesh for multi-chip scale.
+serial device-side tree mutation), the tree builds are fixed-shape
+jitted loops (`lax.fori_loop` / `lax.while_loop`), alignment statistics
+are batched int8 matmuls, sketch intersections are one CUDA kernel
+(native/mash_inter.cu) called through the XLA FFI, and `shard_map`
+spreads work over several GPUs.
 """
 
 __version__ = "0.1.0"

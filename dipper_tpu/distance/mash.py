@@ -1,4 +1,4 @@
-"""Mash sketch distances on the VPU.
+"""Mash sketch distances.
 
 Behavioral spec (src/mash.cu:426-455): for sketches A (an already
 placed taxon) and B (the new row's taxon), walk the two sorted
@@ -10,26 +10,28 @@ sketchSize; then
     j = max(inter, 1) / sketchSize
     d = min(1, |ln(2j / (1+j))| / k)
 
-TPU design: the merge-walk is a serial two-pointer loop — hostile to
-vector hardware. We restate it exactly as data-parallel primitives:
+u64 hashes are rank-compressed once over the whole sketch bank
+(order- and equality-preserving), so every comparison is int32 and a
+sketch row takes half the bytes.
 
-1. GLOBAL RANKS: u64 hashes are rank-compressed once over the whole
-   sketch bank (order- and equality-preserving), so all comparisons
-   are int32 (TPUs have no native u64 compare).
-2. BITONIC MERGE: concat(A_keys, reverse(B_keys)) is bitonic, so 11
-   compare-exchange stages of reshaped min/max produce the merged
-   order of 2048 keys — pure elementwise VPU work, no gathers. Keys
-   are rank*2 + tag (tag 1 for A, 0 for B) which reproduces the
-   walk's tie order: equal-valued B elements come first.
-3. The walk's counters become scans over the merged sequence:
-   a B element is `matched` iff the next A-value at-or-after it (a
-   reverse min-scan) equals its value; uni increments for everything
-   except matched B elements; `inter` sums matched-B events whose
-   exclusive uni-prefix is < sketchSize.
+Two implementations of the count, chosen by platform
+(mash_pairwise_inter):
 
-Equivalence to the serial walk is proven by tests/test_mash.py against
-the transliterated oracle over adversarial multisets (duplicates,
-sentinel-heavy short sequences).
+- GPU: the reference's serial two-pointer walk, one thread per pair,
+  in CUDA (native/mash_inter.cu through distance/mash_gpu.py).
+- CPU: the walk restated as data-parallel XLA. concat(A_keys,
+  reverse(B_keys)) is bitonic, so log2(2M) compare-exchange stages
+  give the merged order; keys are rank*2 + tag (tag 1 for A, 0 for B),
+  which reproduces the walk's tie order (equal-valued B elements come
+  first). A B element is `matched` iff the next A-value at-or-after it
+  (a reverse min-scan) equals its value; uni increments for everything
+  except matched B elements; `inter` sums matched-B events whose
+  exclusive uni-prefix is < sketchSize.
+
+Both are checked against the transliterated serial walk
+(tests/oracle.py) over adversarial multisets (duplicates,
+sentinel-heavy short sequences): tests/test_mash.py on the CPU, and
+chip_smoke.py on the GPU.
 """
 
 from __future__ import annotations
@@ -43,12 +45,10 @@ import numpy as np
 _PAD_KEY = np.int32(2**31 - 1)
 
 
-# Width of the tile-sort stage of the hierarchical global sort. XLA's
-# TPU sort is fast to compile/run at pow2 widths up to ~2^14; beyond
-# that single-dim sorts compile pathologically (a flat 2^25 lax.sort
-# compiled for >20 min on the AOT service). Above _TILE_W the global
-# sort is tile-sorts + explicit bitonic key-value merge rounds, whose
-# graph is ~200 elementwise stages and compiles in seconds.
+# Width of the tile-sort stage of the hierarchical global sort: above
+# _TILE_W the global sort is tile sorts + explicit bitonic key-value
+# merge rounds instead of one flat lax.sort (ROADMAP D4 asks whether
+# the split is still needed).
 _TILE_W = 16384
 
 
@@ -108,23 +108,18 @@ def rank_compress(sketches_u64):
     and equality globally. max rank < N*S (must stay < 2^30 so that
     rank*2+1 fits int32).
 
-    The global sort runs on u32 limb pairs (two-key lax.sort): TPUs
-    have no native u64, and the emulated-u64 argsort is catastrophically
-    slow at bank scale (an [8M] u64 argsort wedged the device; the
-    same sort as two u32 keys runs in milliseconds). Tie order among
-    equal values is irrelevant: the segmented scan assigns every
-    element of an equal-run the same rank."""
+    The global sort runs on u32 limb pairs (two-key lax.sort). Tie
+    order among equal values is irrelevant: the segmented scan assigns
+    every element of an equal-run the same rank."""
     N, S = sketches_u64.shape
     flat = sketches_u64.reshape(-1)
     hi = (flat >> jnp.uint64(32)).astype(jnp.uint32)
     lo = (flat & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32)
-    # pad the sort width to a power of two: XLA's TPU sort is
-    # drastically cheaper to compile and run on pow2 widths (a
-    # non-pow2 30M-element sort OOM-killed the AOT compile helper at
-    # the 30K-taxa operating point). Pads carry sentinel keys and
-    # past-the-end iota, so with a stable sort every real element's
-    # rank (first iota of its equal-run) is unchanged; the inverting
-    # sort brings the real elements back to the front.
+    # pad the sort width to a power of two (the bitonic merge rounds
+    # need it). Pads carry sentinel keys and past-the-end iota, so with
+    # a stable sort every real element's rank (first iota of its
+    # equal-run) is unchanged; the inverting sort brings the real
+    # elements back to the front.
     P = N * S
     Pp = 1 << int(np.ceil(np.log2(max(P, 2))))
     iota = jnp.arange(Pp, dtype=jnp.int32)
@@ -138,8 +133,7 @@ def rank_compress(sketches_u64):
          (hi_s[1:] != hi_s[:-1]) | (lo_s[1:] != lo_s[:-1])]
     )
     rank_sorted = jax.lax.associative_scan(jnp.maximum, jnp.where(newseg, iota, 0))
-    # invert the permutation by a second sort (a random 8M-element
-    # scatter serializes on TPU; sort-by-destination does not)
+    # invert the permutation by a second sort (sort-by-destination)
     _, ranks = _global_sort((order, rank_sorted), keys=1)
     return ranks[:P].reshape(N, S)
 
@@ -150,10 +144,7 @@ def rank_compress_host(sketches_u64: np.ndarray) -> np.ndarray:
     first-iota-of-equal-run ranks); consumers depend only on order and
     equality between ranks — both paths preserve those exactly, so
     distances and trees are identical. Rank compression is one-shot
-    ingest work and the jitted hierarchical sort's XLA compile time
-    explodes past ~2^20 elements (543 s measured at 2^21 on the TPU
-    backend, worse at the 30K-taxa operating point), while np.unique on
-    30M u64 runs in seconds; use this path whenever the sketch bank is
+    ingest work; use this path whenever the sketch bank is
     host-resident."""
     flat = np.ascontiguousarray(sketches_u64).reshape(-1)
     _, inv = np.unique(flat, return_inverse=True)
@@ -191,13 +182,11 @@ def _merged_inter_count(a_keys, b_keys, sketch_size: int):
     last = a_vals.ndim - 1
     next_a = jax.lax.associative_scan(jnp.minimum, a_vals, reverse=True, axis=last)
     matched_b = (~is_a) & (next_a == val)
-    uni_inc = jnp.where(matched_b, 0, 1)
-    cum = jnp.cumsum(uni_inc, axis=-1)
+    uni_inc = jnp.where(matched_b, 0, 1).astype(jnp.int32)
+    cum = jnp.cumsum(uni_inc, axis=-1, dtype=jnp.int32)
     cum_before = cum - uni_inc
-    inter = jnp.sum(
-        (matched_b & (cum_before < sketch_size)).astype(jnp.int32), axis=-1
-    )
-    return inter
+    return jnp.sum(matched_b & (cum_before < sketch_size), axis=-1,
+                   dtype=jnp.int32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,20 +220,24 @@ def _pad_pow2(S: int) -> int:
 
 
 def mash_rows_vs_bank(bank_ranks, query_ranks, *, k: int, sketch_size: int,
-                      dtype_name: str, impl: str = "auto"):
-    """bank_ranks int32 [Na, M] (the already-placed side, tag A),
-    query_ranks [M] (the new taxon, tag B) -> [Na] distances.
+                      dtype_name: str):
+    """bank_ranks int32 [Na, M] (the already-placed side, A),
+    query_ranks [M] (the new taxon, B) -> [Na] distances."""
+    inter = mash_pairwise_inter(bank_ranks, query_ranks[None, :],
+                                sketch_size=sketch_size)[0]
+    return _inter_to_dist(inter, k, sketch_size, jnp.dtype(dtype_name))
 
-    impl: 'auto' == 'xla' for a single row — the Pallas kernel's
-    8-query blocking would pad a lone row 8x, which measures no faster
-    than the fused XLA pipeline; batched callers go through
-    mash_pairwise, which does route to the kernel. Callers that wrap
-    this in vmap must pass 'xla'."""
-    dtype = jnp.dtype(dtype_name)
+
+def _merge_inter_xla(bank_ranks, query_ranks, *, sketch_size: int):
+    """The XLA merge network under a sequential lax.map over queries
+    (each step holds [Na, 2M] int32)."""
     a_keys = bank_ranks * 2 + 1
-    b_keys = jnp.broadcast_to((query_ranks * 2)[None, :], a_keys.shape)
-    inter = _merged_inter_count(a_keys, b_keys, sketch_size)
-    return _inter_to_dist(inter, k, sketch_size, dtype)
+
+    def f(q):
+        b_keys = jnp.broadcast_to((q * 2)[None, :], a_keys.shape)
+        return _merged_inter_count(a_keys, b_keys, sketch_size)
+
+    return jax.lax.map(f, query_ranks)
 
 
 def mash_pairwise_inter(bank_ranks, query_ranks, *, sketch_size: int,
@@ -252,63 +245,37 @@ def mash_pairwise_inter(bank_ranks, query_ranks, *, sketch_size: int,
     """[Na, M] bank x [Nb, M] queries -> int32 [Nb, Na] intersection
     counts (the serial merge-walk's `inter`, src/mash.cu:426-449).
 
+    impl 'auto' picks by the platform the computation is lowered for:
+    the CUDA kernel (distance/mash_gpu.py) on a GPU, the XLA merge
+    network under a sequential lax.map over queries on the CPU. 'map'
+    forces the XLA merge on any platform (the plain reference). Under
+    jax.vmap the kernel runs every batch element in one launch.
+
     Integer counts are bitwise identical across impls and batchings, so
     callers that must produce identical distances from differently
-    shaped dispatches (the D&C big-cluster vs vmapped-cluster split)
+    shaped dispatches (the D&C streamed vs precomputed cluster paths)
     compute counts per path and apply _inter_to_dist once on a common
-    shape — float transcendentals on XLA:CPU differ by ulps between
-    SIMD bodies and scalar tails, so the same formula over [Na] vs
-    [C, cmax, W] is NOT bitwise reproducible."""
-    if impl == "auto":
-        from dipper_tpu.distance.mash_pallas import use_pallas
+    shape: float transcendentals on XLA:CPU differ by ulps between
+    SIMD bodies and scalar tails."""
+    if impl not in ("auto", "map"):
+        raise ValueError(f"impl must be 'auto' or 'map', not {impl!r}")
+    xla = functools.partial(_merge_inter_xla, sketch_size=sketch_size)
+    if impl == "map":
+        return xla(bank_ranks, query_ranks)
+    from dipper_tpu.distance.mash_gpu import mash_inter_gpu
 
-        if use_pallas():
-            impl = "pallas"
-    if impl == "pallas":
-        from dipper_tpu.distance.mash_pallas import mash_inter_pallas
-
-        return mash_inter_pallas(
-            bank_ranks * 2 + 1, query_ranks * 2, sketch_size=sketch_size)
-    a_keys = bank_ranks * 2 + 1
-
-    def f(q):
-        b_keys = jnp.broadcast_to((q * 2)[None, :], a_keys.shape)
-        return _merged_inter_count(a_keys, b_keys, sketch_size)
-
-    if impl == "vmap":
-        return jax.vmap(f)(query_ranks)
-    return jax.lax.map(f, query_ranks)
+    return jax.lax.platform_dependent(
+        bank_ranks, query_ranks, cpu=xla,
+        cuda=functools.partial(mash_inter_gpu, sketch_size=sketch_size))
 
 
 def mash_pairwise(bank_ranks, query_ranks, *, k: int, sketch_size: int,
-                  dtype_name: str, impl: str = "auto"):
+                  dtype_name: str):
     """[Na, M] bank x [Nb, M] queries -> [Nb, Na] distances
-    (d[q, a] = distance with a as the placed side).
-
-    impl 'auto': the VMEM-resident Pallas merge kernel on TPU (measured
-    ~7x the XLA pipeline on v5e, scripts/kernel_micro.py); elsewhere a
-    sequential lax.map over queries — each row's merge already
-    saturates the VPU and vmapping would materialize [Q, Na, 2M]
-    intermediates (OOM at scale). 'vmap' batches (fine for small banks,
-    e.g. per-cluster witness sets). 'pallas' forces the VMEM kernel;
-    'map' forces lax.map."""
-    if impl == "auto":
-        from dipper_tpu.distance.mash_pallas import use_pallas
-
-        if use_pallas():
-            impl = "pallas"
-    if impl == "pallas":
-        from dipper_tpu.distance.mash_pallas import mash_inter_pallas
-
-        inter = mash_inter_pallas(
-            bank_ranks * 2 + 1, query_ranks * 2, sketch_size=sketch_size)
-        return _inter_to_dist(inter, k, sketch_size, jnp.dtype(dtype_name))
-    f = lambda q: mash_rows_vs_bank(
-        bank_ranks, q, k=k, sketch_size=sketch_size, dtype_name=dtype_name,
-        impl="xla")
-    if impl == "vmap":
-        return jax.vmap(f)(query_ranks)
-    return jax.lax.map(f, query_ranks)
+    (d[q, a] = distance with a as the placed side)."""
+    inter = mash_pairwise_inter(bank_ranks, query_ranks,
+                                sketch_size=sketch_size)
+    return _inter_to_dist(inter, k, sketch_size, jnp.dtype(dtype_name))
 
 
 @functools.partial(jax.jit, static_argnames=("k", "sketch_size", "dtype_name"))
@@ -336,23 +303,6 @@ def pad_ranks(ranks):
     xp = np if isinstance(ranks, np.ndarray) else jnp
     pad = xp.full((N, M - S), (_PAD_KEY - 1) // 2, xp.int32)
     return xp.concatenate([ranks, pad], axis=1)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "sketch_size", "dtype_name",
-                                             "block"))
-def _mash_matrix_jit(ranks_pad, *, k, sketch_size, dtype_name, block):
-    dtype = jnp.dtype(dtype_name)
-    N = ranks_pad.shape[0]
-
-    def row(i, D):
-        d = mash_row_from_ranks(ranks_pad, i, k=k, sketch_size=sketch_size,
-                                dtype_name=dtype_name)
-        col = jnp.arange(N)
-        d = jnp.where(col < i, d, 0.0)
-        return D.at[i].set(d)
-
-    D = jax.lax.fori_loop(0, N, row, jnp.zeros((N, N), dtype))
-    return D + D.T
 
 
 def mash_distance_matrix_device(sketches_u64: np.ndarray, k: int,

@@ -1,13 +1,15 @@
 """Multi-host (multi-process) distribution.
 
 The reference is a single-process, single-GPU binary (SURVEY §2.4:
-"Communication backend: none"). This layer is the TPU-native scale-out
-path: `jax.distributed` joins N processes (one per TPU host) into one
+"Communication backend: none"). This layer is the multi-host scale-out
+path: `jax.distributed` joins N processes (one per host) into one
 runtime whose devices form a single global mesh; the sharded engines
 (parallel/sharded.py, nj/engine.py mesh path, dc pipeline mesh path)
-run unchanged on that mesh — their psum/all_gather collectives ride
-ICI within a host and DCN across hosts, inserted by GSPMD exactly as
-in the single-process multi-chip case.
+run unchanged on that mesh — their psum/all_gather collectives go
+through NCCL, over NVLink within a host and the network across hosts,
+inserted by GSPMD exactly as in the single-process multi-GPU case.
+jax.distributed.initialize needs its coordinator address, process count
+and process id: nothing on a plain machine tells JAX of a cluster.
 
 Entry points:
 - init_distributed(): jax.distributed.initialize with env-var

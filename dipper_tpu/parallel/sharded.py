@@ -1,13 +1,14 @@
-"""Multi-chip sharding over a device mesh.
+"""Multi-GPU sharding over a device mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2.4); this layer is the
-TPU-native scale-out it never had. Decomposition (per BASELINE.json
-north star):
+scale-out it never had, over the GPUs of one host (collectives go
+through NCCL over NVLink; every card reaches every other at the same
+rate, so the mesh is 1-D). Decomposition:
 
 - the SKETCH/RANK BANK is sharded row-wise across devices
   (P('d', None)) — the memory that grows with taxa count;
 - the per-insertion DISTANCE ROW is computed shard-locally against the
-  local bank slice and combined with an all_gather (riding ICI);
+  local bank slice and combined with an all_gather;
 - the EDGE-SCORING SCAN is sharded by edge blocks; the global
   (addi, eid) argmin merges via a tiny gathered reduction whose
   device order preserves the lowest-eid tie-break;
@@ -47,8 +48,7 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
 def sharded_mash_matrix(ranks_pad, k: int, sketch_size: int, mesh: Mesh,
                         dtype="float32"):
     """Row-sharded [N, N] mash distance matrix: device i computes the
-    row block of its bank shard against the full bank (gathered
-    shard-by-shard over ICI)."""
+    row block of its bank shard against the full bank (all_gather)."""
     from dipper_tpu.distance.mash import mash_rows_vs_bank
 
     dtype_name = str(jnp.dtype(dtype))
@@ -73,7 +73,7 @@ def sharded_mash_matrix(ranks_pad, k: int, sketch_size: int, mesh: Mesh,
         def row(q_local):
             return mash_rows_vs_bank(
                 bank_full, bank_local[q_local], k=k,
-                sketch_size=sketch_size, dtype_name=dtype_name, impl="xla")
+                sketch_size=sketch_size, dtype_name=dtype_name)
 
         rows = jax.lax.map(row, jnp.arange(bank_local.shape[0]))
         return rows.T  # [N_full, rows_local] -> concat over 'd' on axis 1
@@ -98,7 +98,7 @@ def _sharded_placement_jit(ranks_sharded, *, num_sequences, k, sketch_size,
 
     Decomposition (tree state replicated; every O(N)/O(E) term sharded):
       - distance rows: blocked prefetch — each device runs the
-        production mash kernel (Pallas on TPU) on its bank shard for
+        production mash intersection count on its bank shard for
         ROW_BLOCK queries at once, one all_gather per block;
       - witness scoring: the epoch scorer of kclosest, shard-local over
         a disjoint padded edge split (E_pad = nd*ceil(E/nd); pad slots
@@ -112,7 +112,7 @@ def _sharded_placement_jit(ranks_sharded, *, num_sequences, k, sketch_size,
         the lowest-eid tie-break;
       - splice + witness BFS: replicated (identical on every device —
         determinism keeps replicas in lockstep; per-insertion work is
-        O(frontier), not O(E), so replication costs ICI nothing).
+        O(frontier), not O(E), so replication costs no communication).
 
     Outputs are bitwise identical to the single-device build: every
     per-edge float op sees identical values, and integer mash
@@ -272,8 +272,11 @@ def _sharded_placement_jit(ranks_sharded, *, num_sequences, k, sketch_size,
                 side_glob = jax.lax.all_gather(side_l, "d", tiled=True)
                 return side_l, side_glob[jnp.maximum(rev_l, 0)]
 
-            tier = ((ndirty > t1).astype(jnp.int32)
-                    + (ndirty > t2).astype(jnp.int32))
+            # the branches hold collectives, so every device must take
+            # the same one: pick the tier by the largest shard's count
+            nmax = jax.lax.pmax(ndirty, "d")
+            tier = ((nmax > t1).astype(jnp.int32)
+                    + (nmax > t2).astype(jnp.int32))
             side_l, dis2_l = jax.lax.switch(
                 tier, [tier_branch(t1), tier_branch(t2), full_branch])
             # clamp sequence + local argmin + device-ordered merge

@@ -1,7 +1,7 @@
 """Run configuration.
 
 Mirrors the reference `Param` struct (src/mash_placement.cuh:16-32) plus
-TPU-specific knobs. Defaults follow the reference CLI defaults
+knobs of this implementation. Defaults follow the reference CLI defaults
 (src/tree_generation.cu:192-231): k=15, sketchSize=1000,
 distanceType=1 (uncorrected), input 'r', output 't'.
 """
@@ -34,9 +34,9 @@ class Param:
     batch_size: int = 0         # D&C device batch size (= backbone size)
     backbone_size: int = 0      # D&C backbone size (= N // 20)
 
-    # --- TPU-specific knobs (no reference equivalent) ---
-    # f32 is the fast path; f64 is the bit-parity/debug path (TPU f64 is
-    # emulated and slow).
+    # --- knobs with no reference equivalent ---
+    # f32 is the default; f64 is the bit-parity path and is native on
+    # the GPU (whether f32 and f64 trees agree at scale is ROADMAP R7).
     dtype: str = "float32"
     # seed for the input-order shuffle; the reference uses
     # mt19937(time(NULL)) (src/tree_generation.cu:343) which is
@@ -48,14 +48,13 @@ class Param:
     save_sketches: str | None = None
     load_sketches: str | None = None
     # placement tree-state checkpointing (.npz) + bounded-dispatch chunk
-    # size (insertions per device dispatch; long single executions trip
-    # device-side watchdogs at 1M-taxon scale).
+    # size (insertions per device dispatch; bounds one dispatch's size).
     save_state: str | None = None
     load_state: str | None = None
     state_chunk: int = 8192
     # pow2 prefix caps halve average per-insertion work but compile one
     # program per (cap bucket, N); disable when compile latency
-    # dominates (fresh N through a remote AOT service)
+    # dominates (a first run at a new N)
     prefix_caps: bool = True
     # shard work over the first `devices` local devices (mesh axis 'd');
     # the reference is strictly single-GPU (SURVEY §2.4)

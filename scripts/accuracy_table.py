@@ -46,9 +46,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 def build_matrix(prefix: str, aligned: bool, k: int, ss: int,
                  dist_type: int) -> tuple[list, np.ndarray]:
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from dipper_tpu.io.fasta import read_fasta
 
     names, seqs = read_fasta(prefix + ".fa")
@@ -71,7 +68,6 @@ def build_matrix(prefix: str, aligned: bool, k: int, ss: int,
 
 def run_cli_matrix(phy: str, out: str, mode_flags: list[str]) -> float:
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    env.setdefault("DIPPER_CACHE_DIR", "/tmp/dipper_jax_cache")
     t0 = time.time()
     subprocess.run(
         [sys.executable, "-m", "dipper_tpu.cli", "-i", "d",

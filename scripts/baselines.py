@@ -13,7 +13,7 @@ two classic distance-methods that ARE runnable here as sanity baselines:
 
 Input is either a lower-triangular PHYLIP matrix (--matrix) or a FASTA
 whose mash matrix we compute on CPU (--fasta; JAX_PLATFORMS=cpu is
-forced so the baseline never touches the TPU). Reports wall-clock and
+forced so the baseline never touches the GPU). Reports wall-clock and
 nRF vs --true for each method as one JSON line per method.
 
 Usage:
@@ -114,9 +114,6 @@ def main():
         names, D = read_phylip_lower_triangular(args.matrix)
     elif args.fasta:
         os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
         from dipper_tpu.io.fasta import read_fasta
         from dipper_tpu.sketch.minhash import sketch_sequences
         from dipper_tpu.distance.mash import mash_distance_matrix_device

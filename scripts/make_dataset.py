@@ -11,12 +11,17 @@ indels (unaligned mode). Writes:
   <out>.fa           FASTA (aligned or unaligned)
   <out>.true.nwk     the generating tree (for nRF accuracy checks)
 
+With --matrix it writes <out>.phy instead of FASTA: the tree's
+additive (path-length) distance matrix, lower-triangular PHYLIP, on
+which neighbor joining recovers the generating tree exactly.
+
 Memory-bounded: sequences are uint8 arrays, evolved in DFS order and
 freed once all children are produced, so peak live state is
-O(tree_depth * L), not O(N * L). 100K x 10kb generates in ~1 min.
+O(tree_depth * L), not O(N * L).
 
 Usage:
-  python scripts/make_dataset.py -n 30000 -L 10000 -o /tmp/ds30k [--aligned]
+  python scripts/make_dataset.py -n 30000 -L 10000 -o ds30k [--aligned]
+  python scripts/make_dataset.py -n 8000 -o mat8k --matrix
 """
 
 from __future__ import annotations
@@ -73,6 +78,42 @@ def tree_newick(children, blen, root, names) -> str:
     return res[root]
 
 
+def additive_matrix(children, blen, root, n: int) -> np.ndarray:
+    """[n, n] path-length distances between the leaves: at each
+    internal node, every leaf pair split by it gets its two depths
+    below the node plus the two child branch lengths."""
+    D = np.zeros((n, n))
+    below = {}  # node -> (leaf ids, distance of each to the node)
+    stack = [(root, False)]
+    while stack:
+        node, done = stack.pop()
+        kids = children.get(node)
+        if kids is None:
+            below[node] = (np.array([node]), np.zeros(1))
+            continue
+        if not done:
+            stack.append((node, True))
+            stack.extend((c, False) for c in kids)
+            continue
+        (la, da), (lb, db) = (below.pop(c) for c in kids)
+        da = da + blen[kids[0]]
+        db = db + blen[kids[1]]
+        block = da[:, None] + db[None, :]
+        D[np.ix_(la, lb)] = block
+        D[np.ix_(lb, la)] = block.T
+        below[node] = (np.concatenate([la, lb]), np.concatenate([da, db]))
+    return D
+
+
+def write_phylip(path: str, names, D: np.ndarray):
+    """Lower-triangular PHYLIP (the CLI's -i d input format)."""
+    with open(path, "w") as f:
+        f.write(f"{len(names)}\n")
+        for i, name in enumerate(names):
+            row = "\t".join(map("{:.9g}".format, D[i, :i].tolist()))
+            f.write(name + ("\t" + row if row else "") + "\n")
+
+
 def evolve(children, blen, root, n: int, L: int, rng,
            progress=False):
     """JC evolution: returns dict leaf -> uint8 base-code array [L].
@@ -113,6 +154,9 @@ def main():
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--aligned", action="store_true",
                     help="aligned output with gaps (MSA mode input)")
+    ap.add_argument("--matrix", action="store_true",
+                    help="write the tree's additive distance matrix "
+                         "(<out>.phy) instead of sequences")
     ap.add_argument("--gap-frac", type=float, default=0.05)
     ap.add_argument("--indel-frac", type=float, default=0.02)
     ap.add_argument("--blen-scale", type=float, default=None,
@@ -132,6 +176,14 @@ def main():
     with open(args.out + ".true.nwk", "w") as f:
         f.write(tree_newick(children, blen, root, names) + "\n")
     print(f"tree in {time.time()-t0:.1f}s", file=sys.stderr)
+
+    if args.matrix:
+        t0 = time.time()
+        write_phylip(args.out + ".phy", names,
+                     additive_matrix(children, blen, root, n))
+        print(f"matrix in {time.time()-t0:.1f}s", file=sys.stderr)
+        print(f"wrote {args.out}.phy ({n} taxa) + {args.out}.true.nwk")
+        return
 
     t0 = time.time()
     leaves = evolve(children, blen, root, n, L, rng, progress=True)

@@ -2,7 +2,7 @@
 """Reference-scale benchmark runs with time-to-tree capture.
 
 Mirrors the reference's measurement methodology
-(/root/reference/scripts/experiment.sh:98-123: `/usr/bin/time` wall-
+(scripts/experiment.sh:98-123 of the reference: `/usr/bin/time` wall-
 clock to Newick + VmPeak): generates (or reuses) an AliSim-class
 synthetic dataset (scripts/make_dataset.py), runs the dipper-tpu CLI
 as a subprocess, and records:
@@ -13,8 +13,8 @@ as a subprocess, and records:
   - peak RSS (MaxRSS from /usr/bin/time; the reference polls VmPeak)
   - nRF vs the generating true tree (O(N) hash comparator)
 
-Results append to scale_results.jsonl at the repo root and print as a
-markdown row for BASELINE.md.
+Results append to scale_results.jsonl in the work directory (default
+<repo>/.scale, git-ignored) and print as one JSON object.
 
 Usage:
   python scripts/scale_run.py -n 30000 --mode placement
@@ -67,7 +67,7 @@ def main():
     ap.add_argument("--chunk", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--precision", default="f32")
-    ap.add_argument("--workdir", default="/tmp/dipper_scale")
+    ap.add_argument("--workdir", default=os.path.join(REPO, ".scale"))
     ap.add_argument("--save-state", default=None,
                     help="checkpoint path passed through to the CLI")
     ap.add_argument("--load-state", default=None,
@@ -78,10 +78,6 @@ def main():
     ap.add_argument("--no-nrf", action="store_true")
     ap.add_argument("--tag", default=None)
     ap.add_argument("--timeout", type=int, default=86400)
-    ap.add_argument("--retries", type=int, default=3,
-                    help="on a nonzero exit (e.g. TPU worker crash), "
-                         "relaunch from the --save-state checkpoint up "
-                         "to this many times (0 disables)")
     args = ap.parse_args()
 
     os.makedirs(args.workdir, exist_ok=True)
@@ -89,22 +85,18 @@ def main():
     out_nwk = os.path.join(
         args.workdir, f"out_{args.mode}_n{args.n}_L{args.L}.nwk")
 
-    def build_cmd(load_state):
-        cmd = [sys.executable, "-m", "dipper_tpu.cli",
-               "-i", "r", "-I", prefix + ".fa", "-O", out_nwk,
-               "-k", str(args.k), "-s", str(args.s),
-               "--precision", args.precision,
-               "--state-chunk", str(args.chunk)] + MODE_FLAGS[args.mode]
-        if args.save_state:
-            cmd += ["--save-state", args.save_state]
-        if load_state:
-            cmd += ["--load-state", load_state]
-        if args.no_prefix_caps:
-            cmd += ["--no-prefix-caps"]
-        return cmd
+    cmd = [sys.executable, "-m", "dipper_tpu.cli",
+           "-i", "r", "-I", prefix + ".fa", "-O", out_nwk,
+           "-k", str(args.k), "-s", str(args.s),
+           "--precision", args.precision,
+           "--state-chunk", str(args.chunk)] + MODE_FLAGS[args.mode]
+    if args.save_state:
+        cmd += ["--save-state", args.save_state]
+    if args.load_state:
+        cmd += ["--load-state", args.load_state]
+    if args.no_prefix_caps:
+        cmd += ["--no-prefix-caps"]
 
-    env = dict(os.environ)
-    env.setdefault("DIPPER_CACHE_DIR", "/tmp/dipper_jax_cache")
     t0 = time.time()
     # no /usr/bin/time in this image (the reference's experiment.sh
     # uses it); MaxRSS of the child comes from wait4 rusage instead
@@ -114,45 +106,22 @@ def main():
     # long runs are observable while in flight
     log_path = os.path.join(args.workdir,
                             f"run_{args.mode}_n{args.n}.log")
-    load_state = args.load_state
-    attempts = 1 + max(0, args.retries)
-    stderr = ""
+    print("[scale] run:", " ".join(cmd), file=sys.stderr)
+    stderr_lines = []
     with open(log_path, "w") as logf:
-        for attempt in range(attempts):
-            cmd = build_cmd(load_state)
-            print("[scale] run:", " ".join(cmd), file=sys.stderr)
-            stderr_lines = []
-            proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
-                                    stderr=subprocess.PIPE, text=True,
-                                    env=env, cwd=REPO, bufsize=1)
-            for line in proc.stderr:
-                stderr_lines.append(line)
-                sys.stderr.write(line)
-                sys.stderr.flush()
-                logf.write(line)
-                logf.flush()
-            proc.wait(timeout=args.timeout)
-            stderr = "".join(stderr_lines)
-            if proc.returncode == 0:
-                break
-            # env crash (TPU worker restart, OOM-killed child, ...):
-            # if a checkpoint exists, resume from it instead of dying —
-            # the CLI refuses mismatched checkpoints, so a stale file
-            # from another run fails fast rather than corrupting.
-            can_resume = (args.save_state
-                          and os.path.exists(args.save_state)
-                          and attempt + 1 < attempts)
-            msg = (f"[scale] attempt {attempt + 1} FAILED "
-                   f"rc={proc.returncode}"
-                   + (f"; retrying from {args.save_state}" if can_resume
-                      else ""))
-            print(msg, file=sys.stderr)
-            logf.write(msg + "\n")
+        proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True,
+                                cwd=REPO, bufsize=1)
+        for line in proc.stderr:
+            stderr_lines.append(line)
+            sys.stderr.write(line)
+            sys.stderr.flush()
+            logf.write(line)
             logf.flush()
-            if not can_resume:
-                raise SystemExit(proc.returncode)
-            load_state = args.save_state
-            time.sleep(30)  # let a crashed TPU worker come back
+        proc.wait(timeout=args.timeout)
+    if proc.returncode != 0:
+        raise SystemExit(proc.returncode)
+    stderr = "".join(stderr_lines)
     maxrss_kb = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
     wall_s = time.time() - t0
 
@@ -189,15 +158,9 @@ def main():
         "nrf_vs_true": nrf,
         "ts": int(time.time()),
     }
-    with open(os.path.join(REPO, "scale_results.jsonl"), "a") as f:
+    with open(os.path.join(args.workdir, "scale_results.jsonl"), "a") as f:
         f.write(json.dumps(row) + "\n")
     print(json.dumps(row, indent=2))
-    print("\nMarkdown row:")
-    print(f"| {row['tag']} | {args.n} | {args.L} | {args.mode} | "
-          f"{row['time_to_tree_s']} s | "
-          f"{row['ms_per_insertion'] or '—'} ms/ins | "
-          f"{row['max_rss_mb'] or '—'} MB | "
-          f"{('%.4f' % nrf) if nrf is not None else '—'} |")
 
 
 if __name__ == "__main__":

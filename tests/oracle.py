@@ -112,9 +112,10 @@ def mash_sketch(codes: np.ndarray, k: int, sketch_size: int = 1000) -> np.ndarra
     return out
 
 
-def mash_distance(a: np.ndarray, b: np.ndarray, k: int, sketch_size: int = 1000) -> float:
-    """Merge-walk distance (src/mash.cu:426-455). `a` plays the role of
-    the old taxon's sketch (column idx), `b` the new row's sketch."""
+def mash_inter(a: np.ndarray, b: np.ndarray, sketch_size: int = 1000) -> int:
+    """The merge-walk's intersection count (src/mash.cu:426-450). `a`
+    plays the role of the old taxon's sketch (column idx), `b` the new
+    row's sketch; both ascending, at least sketch_size long."""
     uni = 0
     inter = 0
     bpos = 0
@@ -134,7 +135,12 @@ def mash_distance(a: np.ndarray, b: np.ndarray, k: int, sketch_size: int = 1000)
             break
         uni += 1
         ai += 1
-    j = max(float(inter), 1.0) / sketch_size
+    return inter
+
+
+def mash_distance(a: np.ndarray, b: np.ndarray, k: int, sketch_size: int = 1000) -> float:
+    """Merge-walk distance (src/mash.cu:426-455); sides as in mash_inter."""
+    j = max(float(mash_inter(a, b, sketch_size)), 1.0) / sketch_size
     return min(1.0, abs(np.log(2.0 * j / (1.0 + j)) / k))
 
 

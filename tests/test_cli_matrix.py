@@ -1,4 +1,4 @@
-"""End-to-end: dipper-tpu -i d (PHYLIP matrix -> NJ Newick)."""
+"""End-to-end: the CLI with -i d (PHYLIP matrix -> NJ Newick)."""
 
 import numpy as np
 

@@ -1,4 +1,4 @@
-"""End-to-end: dipper-tpu -i m -d 2 (aligned FASTA -> JC distances -> NJ)."""
+"""End-to-end: the CLI with -i m -d 2 (aligned FASTA -> JC distances -> NJ)."""
 
 import numpy as np
 

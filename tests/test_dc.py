@@ -145,12 +145,11 @@ def test_dc_multichunk_phase2_and_packed_phase3(monkeypatch):
 
 
 def test_dc_size_buckets_and_big_cluster_path(monkeypatch):
-    """Heavy-tailed cluster sizes (the N=100K failure mode: one
-    backbone edge attracting thousands of queries while the median
-    cluster is tiny). Forcing tiny pow2 buckets and a low
-    per-cluster-kernel threshold must leave the tree bitwise unchanged:
-    bucket-local node-id remapping and the big-cluster (non-vmapped)
-    mash distance path both produce the same Dq/build results."""
+    """Heavy-tailed cluster sizes (one backbone edge attracting
+    thousands of queries while the median cluster is tiny). Forcing
+    many small sub-batches per pow2 bucket must leave the tree bitwise
+    unchanged: bucket-local node-id remapping and the batched mash
+    distances produce the same Dq/build results."""
     import dipper_tpu.dc.pipeline as pl
     from dipper_tpu.dc.pipeline import build_dc_tree
     from dipper_tpu.utils.treecmp import rf_distance as rf
@@ -162,8 +161,7 @@ def test_dc_size_buckets_and_big_cluster_path(monkeypatch):
 
     want = build_dc_tree(seqs, names, params)
 
-    monkeypatch.setattr(pl, "_PALLAS_CLUSTER_MIN", 16)
-    monkeypatch.setattr(pl, "PHASE3_BUDGET", 64)
+    monkeypatch.setattr(pl, "PHASE3_BUDGET", 16)
     got = build_dc_tree(seqs, names, params)
     assert got == want
 

@@ -1,7 +1,7 @@
 """f32 topology parity (SURVEY §7.3, VERDICT r2 #7).
 
-Production defaults to float32 (utils/params.py) because TPU f64 is
-emulated and slow; every oracle comparison elsewhere runs f64.
+Production defaults to float32 (utils/params.py); every oracle
+comparison elsewhere runs f64.
 
 Measured precision semantics (documented, not hidden):
 - NJ, exact placement, MSA-frontend placement: f32 reproduces the f64

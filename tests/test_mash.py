@@ -2,6 +2,7 @@
 equivalence, full-matrix + CLI end-to-end."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -47,51 +48,131 @@ def test_sketch_matches_oracle(k):
         assert (sk[i] == want).all(), (i, len(s))
 
 
-def _walk_inter(a, b, sketch_size):
-    """Count `inter` with the oracle's literal merge-walk."""
-    uni = 0
-    inter = 0
-    bpos = 0
-    ai = 0
-    while uni < sketch_size:
-        aval = int(a[ai])
-        while uni < sketch_size and bpos < sketch_size:
-            bval = int(b[bpos])
-            if bval > aval:
-                break
-            if bval < aval:
-                uni += 1
-            else:
-                inter += 1
-            bpos += 1
-        if uni >= sketch_size:
-            break
-        uni += 1
-        ai += 1
-    return inter
+def _adversarial_pair(rng, S, heavy):
+    """Two ascending rank rows of width S, padded with pad keys: a
+    small value universe forces duplicates and cross-duplicates; `heavy`
+    adds long sentinel-like runs of the largest value."""
+    univ = max(60, S // 2)
+    a = np.sort(rng.integers(0, univ, S))
+    b = np.sort(rng.integers(0, univ, S))
+    if heavy:
+        a[-(3 * S // 10):] = univ - 1
+        b[-(45 * S // 100):] = univ - 1
+    return (pad_ranks(a[None].astype(np.int32))[0],
+            pad_ranks(b[None].astype(np.int32))[0])
 
 
+@pytest.mark.parametrize("S", [100, 128, 1000])
 @pytest.mark.parametrize("seed", range(6))
-def test_merge_count_equivalence(seed):
-    """Vectorized merged-count == serial walk on adversarial multisets."""
+def test_merge_count_equivalence(S, seed):
+    """Vectorized merged-count == serial walk on adversarial multisets,
+    at sketch widths with and without pad keys (M = pow2 >= S)."""
     rng = np.random.default_rng(seed)
-    S = 100
-    # small value universe forces many duplicates and cross-duplicates
-    a = np.sort(rng.integers(0, 60, S))
-    b = np.sort(rng.integers(0, 60, S))
-    # sentinel-heavy variants
-    if seed % 2:
-        a[-30:] = 59
-        b[-45:] = 59
-    want = _walk_inter(a, b, S)
-    M = 128
-    PAD = (2**31 - 2) // 2
-    a_pad = np.concatenate([a, np.full(M - S, PAD)]).astype(np.int32)
-    b_pad = np.concatenate([b, np.full(M - S, PAD)]).astype(np.int32)
+    M = 1 << int(np.ceil(np.log2(S)))
+    a_pad, b_pad = _adversarial_pair(rng, S, heavy=seed % 2 == 1)
+    assert a_pad.shape == (M,)
+    want = oracle.mash_inter(a_pad[:S], b_pad[:S], S)
     got = int(_merged_inter_count(
         jnp.asarray(a_pad * 2 + 1)[None, :], jnp.asarray(b_pad * 2)[None, :], S
     )[0])
     assert got == want
+
+
+def test_pad_ranks_keys_sort_last():
+    """pad_ranks widens rows to the next power of two with one pad key
+    that sorts after every real rank and keeps tagged keys (2r+1) inside
+    int32; host and device inputs pad alike."""
+    r = np.array([[0, 5, 9], [1, 2, 3]], np.int32)
+    host = pad_ranks(r)
+    dev = np.asarray(pad_ranks(jnp.asarray(r)))
+    assert host.shape == (2, 4) and isinstance(host, np.ndarray)
+    np.testing.assert_array_equal(host, dev)
+    pad = host[0, 3]
+    assert pad > r.max() and 2 * int(pad) + 1 <= np.iinfo(np.int32).max
+    assert pad_ranks(host) is host  # already a power of two
+
+
+@pytest.mark.parametrize("platform,kernel", [("cuda", True), ("cpu", False)])
+def test_pairwise_inter_picks_impl_by_platform(platform, kernel):
+    """mash_pairwise_inter lowers to the CUDA kernel for a GPU and to
+    the XLA merge network for the CPU, nothing else in either case."""
+    from dipper_tpu.distance.mash import mash_pairwise_inter
+
+    bank = jax.ShapeDtypeStruct((50, 128), jnp.int32)
+    q = jax.ShapeDtypeStruct((7, 128), jnp.int32)
+    f = jax.jit(lambda b, x: mash_pairwise_inter(b, x, sketch_size=100))
+    txt = f.trace(bank, q).lower(lowering_platforms=(platform,)).as_text()
+    assert ("dipper_mash_inter" in txt) == kernel
+    assert ("stablehlo.minimum" in txt) == (not kernel)
+
+
+def test_pairwise_inter_kernel_batches_under_vmap():
+    """Under jax.vmap the kernel is one call on [c, N, M] x [c, Q, M]
+    with a [c, Q, N] result; forced XLA impls keep the CPU merge."""
+    from dipper_tpu.distance.mash import mash_pairwise_inter
+
+    bank = jax.ShapeDtypeStruct((3, 50, 128), jnp.int32)
+    q = jax.ShapeDtypeStruct((3, 7, 128), jnp.int32)
+    g = jax.jit(jax.vmap(
+        lambda b, x: mash_pairwise_inter(b, x, sketch_size=100)))
+    assert jax.eval_shape(g, bank, q) == jax.ShapeDtypeStruct(
+        (3, 7, 50), jnp.int32)
+    txt = g.trace(bank, q).lower(lowering_platforms=("cuda",)).as_text()
+    calls = [ln for ln in txt.splitlines() if "dipper_mash_inter" in ln]
+    assert len(calls) == 1 and "tensor<3x50x128xi32>" in calls[0]
+    forced = jax.jit(jax.vmap(lambda b, x: mash_pairwise_inter(
+        b, x, sketch_size=100, impl="map")))
+    txt = forced.trace(bank, q).lower(lowering_platforms=("cuda",)).as_text()
+    assert "dipper_mash_inter" not in txt
+
+
+def test_pairwise_inter_impls_agree():
+    """'auto' (the CPU merge here) and 'map' give identical int32
+    counts, batched or not, equal to the serial walk."""
+    from dipper_tpu.distance.mash import mash_pairwise_inter
+
+    rng = np.random.default_rng(4)
+    S = 100
+    rows = [_adversarial_pair(rng, S, heavy=i % 2 == 1)
+            for i in range(6)]
+    bank = np.stack([r[0] for r in rows])
+    q = np.stack([r[1] for r in rows[:4]])
+    want = np.array([[oracle.mash_inter(a[:S], b[:S], S) for a in bank]
+                     for b in q])
+    for impl in ("auto", "map"):
+        got = np.asarray(mash_pairwise_inter(
+            jnp.asarray(bank), jnp.asarray(q), sketch_size=S, impl=impl))
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+    batched = np.asarray(jax.vmap(
+        lambda b, x: mash_pairwise_inter(b, x, sketch_size=S))(
+            jnp.asarray(np.stack([bank, bank[::-1]])),
+            jnp.asarray(np.stack([q, q]))))
+    np.testing.assert_array_equal(batched[0], want)
+    np.testing.assert_array_equal(batched[1], want[:, ::-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [100, 1000])
+def test_gpu_kernel_matches_merge(gpu_device, S):
+    """The CUDA kernel's counts equal the XLA merge's bitwise, batched
+    and not (chip_smoke.py repeats this at bank width 30,000)."""
+    from dipper_tpu.distance.mash import mash_pairwise_inter
+
+    rng = np.random.default_rng(S)
+    rows = [_adversarial_pair(rng, S, heavy=i % 3 == 0)
+            for i in range(70)]
+    bank = jnp.asarray(np.stack([r[0] for r in rows]))
+    q = jnp.asarray(np.stack([r[1] for r in rows[:19]]))
+    got = np.asarray(mash_pairwise_inter(bank, q, sketch_size=S))
+    want = np.asarray(mash_pairwise_inter(bank, q, sketch_size=S,
+                                          impl="map"))
+    np.testing.assert_array_equal(got, want)
+    got_b = np.asarray(jax.vmap(
+        lambda b, x: mash_pairwise_inter(b, x, sketch_size=S))(
+            jnp.stack([bank, bank[::-1]]), jnp.stack([q, q])))
+    np.testing.assert_array_equal(got_b[0], want)
+    np.testing.assert_array_equal(got_b[1], want[:, ::-1])
 
 
 def test_mash_matrix_matches_oracle():

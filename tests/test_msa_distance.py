@@ -32,7 +32,7 @@ def test_msa_f32_close():
     codes = _codes(seed=42)
     want = msa_distance_matrix(codes, 2)
     got = msa_distance_matrix_device(codes, 2, dtype="float32")
-    # tolerance sized for TPU f32 transcendentals (log near the JC pole
+    # tolerance sized for f32 transcendentals (log near the JC pole
     # amplifies rounding; the pair counts themselves are exact int32)
     assert np.allclose(got, want, rtol=2e-3, atol=1e-5)
 

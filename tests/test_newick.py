@@ -36,10 +36,17 @@ def test_roundtrip():
 
 
 def test_parse_backbone_dataset():
-    # the reference's shipped example backbone (dataset/t2.backbone.nwk)
-    with open("/root/reference/dataset/t2.backbone.nwk") as f:
-        s = f.read().strip()
+    # a backbone as the engine writes one: the NJ tree of a seeded
+    # random Euclidean distance matrix
+    from oracle import neighbor_joining, nj_newick
+
+    rng = np.random.default_rng(2)
+    pts = rng.random((200, 4))
+    D = np.sqrt(((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1))
+    children, root = neighbor_joining(D)
+    s = nj_newick(children, root, [f"T{i}" for i in range(200)])
     nleaves = s.count(",") + 1
+    assert nleaves == 200
     t = parse_newick(s, total_leaves=nleaves)
     assert t.num_leaves == nleaves
     leaves = [n for n in t.all_nodes.values() if n.is_leaf()]
